@@ -1,8 +1,8 @@
 """Shared commitment-key selection for the examples.
 
-Real Pedersen keys (device SVDW setup + TPU MSM commits — the reference's
-always-real configuration, `src/commitment.rs:81-90`) are the default on an
-accelerator backend; the CPU backend defaults to the non-binding
+Real Pedersen keys (device SVDW setup + device MSM commits — the reference's
+always-real configuration, `src/commitment.rs:81-90`) are the default on the
+GPU; the CPU backend defaults to the non-binding
 MockCommitmentKey so the examples stay runnable in seconds.  Override with
 SIRIUS_TPU_REAL_KEYS=1/0.
 """
@@ -19,7 +19,7 @@ def example_keys(k_primary: int, k_support: int | None = None, label: str = "exa
     from sirius_tpu.curves.jpoint import BN256_G1, GRUMPKIN
 
     env = os.environ.get("SIRIUS_TPU_REAL_KEYS")
-    real = env not in ("0", "false") if env is not None else jax.default_backend() != "cpu"
+    real = env not in ("0", "false") if env is not None else jax.default_backend() == "gpu"
     if not real:
         from sirius_tpu.util.testing import MockCommitmentKey
 

@@ -3,7 +3,7 @@
 
 Canonical API usage: build PublicParams for a 2-cycle, run IVC::new, fold a
 few steps, verify.  By default uses the homomorphic mock commitment so it
-runs anywhere; pass --real-commitments on a TPU for the full MSM path.
+runs anywhere; pass --real-commitments on a GPU for the full MSM path.
 """
 
 import argparse

@@ -9,12 +9,12 @@ report amortized s/step.
 
 Mock commitment keys (homomorphic s*G, `util/testing.py`) keep the run
 CPU-feasible; `--real-keys` switches to real Pedersen MSM commitments for
-TPU runs.  Either way the full protocol executes: PG prove/fold, support
+GPU runs.  Either way the full protocol executes: PG prove/fold, support
 Sangria folds, taped SFC synthesis, transcript chains, marker hashes.
 
 Usage:
   python scripts/long_fold.py --steps 1024 --segments 4          # CPU, mock
-  python scripts/long_fold.py --steps 1024 --real-keys           # TPU
+  python scripts/long_fold.py --steps 1024 --real-keys           # GPU
 Emits one JSON line at the end; appends per-segment JSON to --out.
 """
 
@@ -37,8 +37,8 @@ def main():
     ap.add_argument("--step-circuit", default="trivial", choices=["trivial", "poseidon"])
     ap.add_argument("--real-keys", action="store_true")
     ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
-    ap.add_argument("--ckpt", default="/tmp/sirius_tpu_long_fold_ckpt")
-    ap.add_argument("--out", default="scripts/out/long_fold.jsonl")
+    ap.add_argument("--ckpt", default=".cache/long_fold_ckpt")
+    ap.add_argument("--out", default=".cache/long_fold.jsonl")
     ap.add_argument(
         "--verify-every-segment",
         action="store_true",

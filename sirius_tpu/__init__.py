@@ -1,10 +1,10 @@
-"""sirius_tpu — a TPU-native Plonkish folding framework for IVC.
+"""sirius_tpu — a JAX Plonkish folding framework for IVC on NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 Rust library (snarkify/sirius): Sangria and ProtoGalaxy folding (NIFS),
 Sangria / Cyclefold IVC drivers, a Plonkish special-sound prover, and the
 compute core (Pippenger MSM, radix-2 NTT, Poseidon sponge, row-parallel gate
-evaluation) as limb-decomposed field kernels sharded over TPU meshes.
+evaluation) as limb-decomposed field kernels, shardable over a device mesh.
 
 Layer map (mirrors SURVEY.md §1):
   fields/   limbed Montgomery field arithmetic (JAX) + python-int gold model

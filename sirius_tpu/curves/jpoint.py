@@ -1,6 +1,6 @@
 """JAX elliptic-curve point kernels (Jacobian coordinates, a = 0 curves).
 
-TPU-native replacement for the reference's `halo2curves` group arithmetic
+Device replacement for the reference's `halo2curves` group arithmetic
 (SURVEY.md §2.8 item 1/2).  A point batch is a `Points` pytree of three
 `uint32[..., 16]` Montgomery-limb arrays; infinity is encoded as z == 0.
 
@@ -101,7 +101,7 @@ class Curve:
     # -- group law -------------------------------------------------------------
     # Independent field muls are stacked into single batched calls: fewer,
     # wider kernels (one mont-mul program instance per group instead of one
-    # per operand) — crucial for both XLA compile time and TPU throughput.
+    # per operand) — smaller programs to compile, fewer kernels to launch.
     def dbl(self, P: Points) -> Points:
         """Jacobian doubling, a=0 (dbl-2009-l).  Identity-safe (z3 = 2*y*z)."""
         f = self.fb

@@ -1,12 +1,13 @@
 """Limb-FIRST field arithmetic: arrays are uint32[L, ...rows] (limbs on
 axis 0), the transpose of `jfield.Field`'s uint32[..., L].
 
-Why: XLA/TPU maps an array's LAST axis onto the 128-wide vector lanes.  The
-limb-last layout puts the 16 limbs there (12.5% lane utilization — measured
-~8x below the VPU roofline on big row sweeps); limb-first puts the rows
-there, so every field op runs at full width while keeping the exact same
-vectorized CIOS structure and op count (compile size stays small, unlike a
-per-limb list representation).
+Why: the LAST axis of an array is its contiguous one.  The limb-last layout
+puts the 16 limbs there, so a thread that handles one row strides through
+memory and neighbouring threads read addresses 64 bytes apart; limb-first
+puts the rows there, so neighbouring threads read neighbouring words
+(coalesced access) while keeping the exact same vectorized CIOS structure
+and op count (compile size stays small, unlike a per-limb list
+representation).
 
 Used by the compiled hot programs (gate-leaf sweeps, tree reductions,
 folds): they transpose (n, L) <-> (L, n) once at the program boundary —
@@ -25,7 +26,7 @@ import numpy as np
 
 from .constants import LIMB_BITS, LIMB_MASK, NUM_LIMBS, FieldSpec
 from . import limb as limbutil
-from .jfield import Field, _unroll_mul
+from .jfield import Field
 
 L = NUM_LIMBS
 MASK = np.uint32(LIMB_MASK)
@@ -102,14 +103,17 @@ class FieldLF:
     # -- carry machinery -------------------------------------------------------
     @staticmethod
     def _ripple(t):
-        n = t.shape[0]
-        outs = []
-        c = jnp.zeros(t.shape[1:], jnp.uint32)
-        for j in range(n):
-            s = t[j] + c
-            outs.append(s & MASK)
-            c = s >> LIMB_BITS
-        return jnp.stack(outs), c
+        """Carry-propagate along the limb axis, a scan as in `Field._ripple`:
+        unrolled, every add's chain of steps is inlined into the program,
+        and the NTT and fold programs compile several times slower
+        (PERF.md)."""
+
+        def step(c, tj):
+            s = tj + c
+            return s >> LIMB_BITS, s & MASK
+
+        c, outs = jax.lax.scan(step, jnp.zeros(t.shape[1:], jnp.uint32), t)
+        return outs, c
 
     def _cond_sub_p(self, r):
         t = r + self._bcast_const(self._notp_col, r.ndim)
@@ -138,7 +142,7 @@ class FieldLF:
         return self.add(a, a)
 
     def mul(self, a, b):
-        """Montgomery CIOS, limbs on axis 0 (rows on lanes).  Same lazy-carry
+        """Montgomery CIOS, limbs on axis 0 (rows contiguous).  Same lazy-carry
         structure and op count as `Field.mul`."""
         a, b = self._align(a, b)
         shape = jnp.broadcast_shapes(a.shape[1:], b.shape[1:])
@@ -162,13 +166,9 @@ class FieldLF:
             )
 
         t = jnp.zeros((L + 1,) + shape, jnp.uint32)
-        if _unroll_mul():
-            for i in range(L):
-                t = step(t, a[i])
-        else:
-            t = jax.lax.fori_loop(
-                0, L, lambda i, t: step(t, jax.lax.dynamic_index_in_dim(a, i, keepdims=False)), t
-            )
+        t = jax.lax.fori_loop(
+            0, L, lambda i, t: step(t, jax.lax.dynamic_index_in_dim(a, i, keepdims=False)), t
+        )
         r, _ = self._ripple(t)
         return self._cond_sub_p(r[:L])
 

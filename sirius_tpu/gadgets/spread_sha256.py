@@ -12,7 +12,7 @@ but re-designed around this frontend:
     lookup for sub-H bit widths (c < 2^w  <=>  c·2^(H-w) < 2^H), which keeps
     every range obligation inside the same argument — the whole circuit then
     rides the log-derivative lookup machinery that already runs as fused
-    row sweeps on TPU (`plonk/lookup.py`).
+    device row sweeps (`plonk/lookup.py`).
   * H parameterizes the half-width: H=16 matches the reference scale (2^16
     table, primary k>=17); H=8 gives a 256-row table so the full compression
     is testable on CPU at k=14.

@@ -1,13 +1,13 @@
 """Native host runtime: ctypes bindings for the C++ field/MSM library.
 
-The reference framework is a native (Rust) library end-to-end; here the TPU
+The reference framework is a native (Rust) library end-to-end; here the device
 compute path is jax/XLA (`ops/`), and this module is the native *host*
 complement — fast 256-bit Montgomery batch field ops and a multi-threaded
 Pippenger MSM — compiled on demand from `host_field.cpp` with g++ and
 loaded via ctypes (no pybind11 in the image).
 
 Public surface:
-    available() -> bool
+    available() -> bool, tape_available() -> bool
     NativeField(p)         .mul/.add/.sub/.inv_batch on int lists
     native_msm(curve_spec, points, scalars, threads=os.cpu_count())
 
@@ -26,23 +26,35 @@ from pathlib import Path
 
 import numpy as np
 
+from ..util.cache import DATA_DIR
+
 _SRC = Path(__file__).with_name("host_field.cpp")
-_CACHE_DIR = Path(os.environ.get("SIRIUS_TPU_CACHE", Path.home() / ".cache" / "sirius_tpu"))
+_CACHE_DIR = Path(DATA_DIR)
 
 _lib = None
 _lib_error: str | None = None
 
 
-def _build() -> ctypes.CDLL:
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
+def _cpu_flags() -> bytes:
+    """The host CPU's feature flags: the libraries are built with
+    -march=native, so a checkout moved to another CPU must rebuild them."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return next((line for line in f if line.startswith(b"flags")), b"")
+    except OSError:
+        return b""
+
+
+def _build_lib(src_path: Path) -> ctypes.CDLL:
+    """Compile `src_path` with g++ (once per source and CPU) and load it."""
+    tag = hashlib.sha256(src_path.read_bytes() + _cpu_flags()).hexdigest()[:16]
     _CACHE_DIR.mkdir(parents=True, exist_ok=True)
-    so = _CACHE_DIR / f"host_field-{tag}.so"
+    so = _CACHE_DIR / f"{src_path.stem}-{tag}.so"
     if not so.exists():
         tmp = so.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [
             "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-            "-o", str(tmp), str(_SRC),
+            "-o", str(tmp), str(src_path),
         ]
         subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         os.replace(tmp, so)
@@ -57,7 +69,7 @@ def _load():
         _lib_error = "disabled via SIRIUS_TPU_NATIVE=0"
         return None
     try:
-        lib = _build()
+        lib = _build_lib(_SRC)
     except Exception as exc:  # toolchain missing, compile error, ...
         _lib_error = f"native build failed: {exc}"
         return None
@@ -189,19 +201,7 @@ def _load_tape():
         _tape_error = "disabled via SIRIUS_TPU_NATIVE=0"
         return None
     try:
-        src = _TAPE_SRC.read_bytes()
-        tag = hashlib.sha256(src).hexdigest()[:16]
-        _CACHE_DIR.mkdir(parents=True, exist_ok=True)
-        so = _CACHE_DIR / f"witness_tape-{tag}.so"
-        if not so.exists():
-            tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [
-                "g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-                "-o", str(tmp), str(_TAPE_SRC),
-            ]
-            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
+        lib = _build_lib(_TAPE_SRC)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         u32p = ctypes.POINTER(ctypes.c_uint32)
         lib.sirius_tape_replay.restype = ctypes.c_int
@@ -214,6 +214,15 @@ def _load_tape():
         _tape_error = f"tape build failed: {exc}"
         return None
     return _tape_lib
+
+
+def tape_available() -> bool:
+    return _load_tape() is not None
+
+
+def tape_load_error() -> str | None:
+    _load_tape()
+    return _tape_error
 
 
 def tape_replay_native(finalized, inputs, out_slots: np.ndarray):

@@ -5,7 +5,7 @@
 // src/commitment.rs, best_multiexp usage): batch field ops and a
 // multi-threaded Pippenger multi-scalar multiplication for the host side
 // of the framework (verification oracle, CPU commitments, bench gold
-// checks).  The TPU compute path lives in jax/XLA (ops/msm.py); this is
+// checks).  The device compute path lives in jax/XLA (ops/msm.py); this is
 // the CPU complement, written from scratch.
 //
 // Representation: 4 x u64 little-endian limbs; short Weierstrass curves

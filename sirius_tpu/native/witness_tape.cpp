@@ -1,7 +1,7 @@
 // Witness-tape interpreter: straight-line bignum program replay.
 //
 // Executes the op stream recorded by `frontend/tape.py` (trace-once /
-// replay-native witness synthesis — the TPU-framework counterpart of the
+// replay-native witness synthesis — this framework's counterpart of the
 // reference's native Rust witness collectors, `src/table/witness_collector.rs`).
 // Semantics mirror Python ints exactly: arbitrary precision (bounded at
 // 16x64-bit magnitude by the tracer's range analysis), floor division,

@@ -376,7 +376,7 @@ class VanillaFS:
             for k in range(1, D + 1)
         ]
         if len(cross_terms) > 1 and hasattr(ck, "commit_device_many"):
-            # one batched MSM program for every T_k (shared key points)
+            # every T_k over the shared key points
             cross_term_commits = ck.commit_device_many(jnp.stack(cross_terms))
         else:
             cross_term_commits = [ck.commit_device(T) for T in cross_terms]

@@ -1,17 +1,17 @@
 """Radix-2 NTT over limbed prime fields (device, limb-first).
 
-TPU-native replacement for reference `src/fft.rs` (SURVEY.md §2.1).  The
+Device replacement for reference `src/fft.rs` (SURVEY.md §2.1).  The
 recursive rayon strategy becomes an iterative vectorized butterfly ladder:
 each of the k stages is one batched Montgomery multiply + add/sub over the
 whole (row-shardable) domain, compiled into a single XLA program.
 
-Layout: the ladder runs LIMB-FIRST (uint32[L, n], rows on the 128-wide
-vector lanes) — the same layout lesson as every other hot op here: limb-last
-puts the 16 limbs on the lanes (12.5% utilization), limb-first puts the 2^k
-rows there.  The public API stays limb-last (n, L) at the boundary with one
+Layout: the ladder runs LIMB-FIRST (uint32[L, n], rows on the minor axis)
+— the same layout as every other hot op here: limb-last puts the 16 limbs
+on the minor axis, limb-first puts the 2^k rows there, so neighbouring
+threads read neighbouring rows (coalesced access).  The public API stays limb-last (n, L) at the boundary with one
 transpose pass each way; `fft_lf` exposes the native limb-first entry.
 
-Stage scheduling details that matter on TPU:
+Stage scheduling details:
 - the m==1 stage multiplies by omega^0 == 1, so it is a pure add/sub (no
   Montgomery mul) — k stages cost (k-1) * n/2 muls total;
 - twiddles for every stage are precomputed host-side into one table per
@@ -88,14 +88,11 @@ class NTT:
         self.zeta_inv_pows = np.asarray(field.encode(zpow_inv)).T.copy()
 
         # four-step decomposition (k >= 10): n = n1*n2, two column-NTT
-        # passes with full-width lanes; SIRIUS_TPU_NTT_LADDER=1 forces the
+        # passes over a long minor axis; SIRIUS_TPU_NTT_LADDER=1 forces the
         # flat ladder (oracle / microbenchmarks)
         import os as _os
 
         self.use_four_step = k >= 10 and _os.environ.get("SIRIUS_TPU_NTT_LADDER") != "1"
-        # Pallas VMEM-resident column kernels for the four-step passes:
-        # "1" = real kernel, "interpret" = interpreter (CPU correctness)
-        self._pallas_mode = _os.environ.get("SIRIUS_TPU_NTT_PALLAS", "")
         if self.use_four_step:
             self.n1 = 1 << ((k + 1) // 2)
             self.n2 = 1 << (k // 2)
@@ -145,17 +142,16 @@ class NTT:
 
     # -- four-step (Bailey) core ----------------------------------------------
     # The flat ladder's stage at half-size m has its butterfly pairs on a
-    # minor axis of extent m: for m < 128 the 128-wide vector lanes starve
-    # (measured 3.2 M elems/s at 2^20 — barely better than limb-last).  The
-    # n = n1*n2 decomposition runs two column-NTT passes whose butterflies
-    # always keep a large axis minor (full lanes every stage), one (L, n)
-    # transpose between them, and a fused mid-twiddle:
+    # minor axis of extent m, so its early stages work on short contiguous
+    # runs.  The n = n1*n2 decomposition runs two column-NTT passes whose
+    # butterflies always keep a large axis minor (long contiguous runs every
+    # stage), one (L, n) transpose between them, and a fused mid-twiddle:
     #   X[o2*n1 + o1] = sum_i2 w^(n1*i2*o2) * [ T[o1,i2] *
     #                       sum_i1 x[i1*n2 + i2] * w^(n2*i1*o1) ]
     #   with T[o1,i2] = w^(o1*i2)  (times 1/n for the inverse transform).
 
     def _col_ntt(self, a: jnp.ndarray, size: int, rev: np.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-        """NTT along axis 1 of (L, size, R); minor axis R rides the lanes."""
+        """NTT along axis 1 of (L, size, R); R is the contiguous minor axis."""
         lf = self.lf
         R = a.shape[2]
         a = a[:, jnp.asarray(rev), :]
@@ -178,15 +174,6 @@ class NTT:
         inner = jnp.asarray(self.w_inner_inv if inverse else self.w_inner)
         outer = jnp.asarray(self.w_outer_inv if inverse else self.w_outer)
         M = al.reshape(L, n1, n2)
-        if self._pallas_mode:
-            from .pallas_ntt import col_ntt_pallas
-
-            interp = self._pallas_mode == "interpret"
-            A = col_ntt_pallas(self.lf, M, self.rev_n1, inner, interpret=interp)
-            B = self.lf.mul(A, mid)
-            D = jnp.swapaxes(B, 1, 2)
-            E = col_ntt_pallas(self.lf, D, self.rev_n2, outer, interpret=interp)
-            return E.reshape(L, self.n)
         A = self._col_ntt(M, n1, self.rev_n1, inner)  # (L, o1, i2)
         B = self.lf.mul(A, mid)
         D = jnp.swapaxes(B, 1, 2)  # (L, i2, o1)

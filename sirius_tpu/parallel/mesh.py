@@ -1,10 +1,13 @@
 """Device mesh + sharding policy.
 
 The reference has no distributed layer (rayon only; SURVEY.md §2.8) — this
-is the first-class new component: a 1-D `rows` mesh over ICI shards the
-evaluation domain (rows of the 2^k table, MSM points, NTT halves); XLA/GSPMD
-inserts the collectives (halo exchange for rotations, all-to-all for NTT
-stages, psum for MSM window totals and log-derivative sums).  The transcript
+is the first-class new component: a flat 1-D `rows` mesh over the first n
+devices JAX lists shards the evaluation domain (rows of the 2^k table, MSM
+points, NTT halves).  No device order is preferred: on the H100 the cards of
+one host are joined all to all by NVLink.  XLA/GSPMD inserts the collectives
+(halo exchange for rotations, all-to-all for NTT stages, psum for
+log-derivative sums); the MSM gathers its per-device window totals and
+combines them on the host (`ops/msm.msm_sharded`).  The transcript
 RO stays on the host controller so absorb/squeeze order is device-count
 invariant (SURVEY.md §5).
 """

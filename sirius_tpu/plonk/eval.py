@@ -83,9 +83,8 @@ class PlonkEvalDomain:
         """Trace exprs into LIMB-FIRST (L, n) Montgomery arrays.
 
         Every source column transposes to (L, n) once and all field ops run
-        limb-first — on TPU the limb-last (n, L) layout puts the 16 limbs on
-        the 128-wide lane axis (12.5% utilization; measured ~8x slower on
-        row sweeps)."""
+        limb-first, with rows on the contiguous axis (see
+        `fields.jfield_lf`)."""
         from ..fields.jfield_lf import lf_for, to_lf
 
         flf = lf_for(self.S.field)

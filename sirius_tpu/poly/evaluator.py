@@ -1,6 +1,6 @@
 """Expression -> jitted row-parallel evaluator.
 
-TPU-native replacement for reference `src/polynomial/graph_evaluator.rs`
+Device replacement for reference `src/polynomial/graph_evaluator.rs`
 (SURVEY.md §2.2): instead of interpreting an SSA tape per row, the AST is
 traced once into an XLA program over whole column arrays; the per-row loop
 disappears and XLA fuses the element-wise field ops.  Common subexpressions

@@ -2,7 +2,7 @@
 
 Replaces reference `src/polynomial/sparse.rs` (SURVEY.md §2.1).  The host
 form is a triplet list; the device form turns P @ Z into gather + weighted
-segment-sum, which XLA lowers to efficient scatter/gather on TPU.
+segment-sum, which XLA lowers to device scatter/gather.
 """
 
 from __future__ import annotations

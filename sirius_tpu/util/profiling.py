@@ -31,7 +31,8 @@ class Span:
 
 class Profiler:
     """Collects a span tree; enable with SIRIUS_TPU_PROFILE=1 or
-    `profiler.enable()`."""
+    `profiler.enable()`.  A span ends by waiting for every live device
+    array, so it holds its device work and not only its dispatch."""
 
     def __init__(self):
         self.enabled = os.environ.get("SIRIUS_TPU_PROFILE", "0") not in ("0", "")
@@ -55,6 +56,9 @@ class Profiler:
         try:
             yield
         finally:
+            import jax
+
+            jax.block_until_ready(jax.live_arrays())
             stack.pop()
             s.elapsed = time.perf_counter() - s.start
             if self.json_stream:

@@ -87,14 +87,14 @@ def test_commit_native_backend_matches_tpu_path(monkeypatch):
     from sirius_tpu.curves.jpoint import BN256_G1
     from sirius_tpu.ops.commitment import CommitmentKey
 
-    # window_bits=8: the 2^16-bucket XLA kernel is TPU-sized, not CPU-test-sized
+    # window_bits=8: the 2^16-bucket XLA kernel is too big for a CPU test
     ck = CommitmentKey.setup(BN256_G1, 5, b"test-native-commit", window_bits=8)
     v = _rand_elems(bn256_g1.scalar.modulus, 32)
     monkeypatch.delenv("SIRIUS_TPU_COMMIT_BACKEND", raising=False)
-    c_tpu = ck.commit(v)
+    c_device = ck.commit(v)
     monkeypatch.setenv("SIRIUS_TPU_COMMIT_BACKEND", "native")
     c_native = ck.commit(v)
-    assert (c_native.x, c_native.y) == (c_tpu.x, c_tpu.y)
+    assert (c_native.x, c_native.y) == (c_device.x, c_device.y)
 
 
 def test_msm_window_sizes_agree():

@@ -126,46 +126,3 @@ def test_fft_lf_matches_limb_last(rng):
     back = from_lf(ctx.ifft_lf(to_lf(out_lf)))
     assert FR.decode(back) == xs
 
-
-def test_pallas_col_ntt_interpret_matches_xla(rng):
-    """The Pallas VMEM-resident column kernel (interpret mode) is bit-exact
-    vs the XLA _col_ntt ladder on a small (L, size, R) block."""
-    import jax.numpy as jnp
-
-    from sirius_tpu.fields.jfield_lf import lf_for, to_lf
-    from sirius_tpu.ops.ntt import NTT
-    from sirius_tpu.ops.pallas_ntt import col_ntt_pallas
-
-    k = 8
-    size, R = 16, 16  # size*R = 2^8
-    ctx = NTT(FR, k)  # provides twiddle tables at omega order... build manually
-    lf = lf_for(FR)
-    xs = [int(x) for x in rng.integers(0, 2**62, size=size * R)]
-    a = jnp.asarray(to_lf(FR.encode(xs))).reshape(16, size, R)
-
-    # column-NTT over axis 1 with the order-`size` root: reuse the four-step
-    # inner machinery of a context whose n1 == size
-    import numpy as np
-
-    from sirius_tpu.fields import gold as gold_mod
-    from sirius_tpu.fields.constants import bn256_fr as _fr
-
-    p = _fr.modulus
-    w = pow(gold_mod.omega_for_k(_fr, k), R, p)  # order-`size` root
-
-    def powers_lf(base, count):
-        vals, acc = [], 1
-        for _ in range(count):
-            vals.append(acc)
-            acc = acc * base % p
-        return np.asarray(FR.encode(vals)).T.copy()
-
-    table = powers_lf(w, size // 2)
-    rev = np.zeros(size, dtype=np.int32)
-    idx = np.arange(size)
-    for b in range(4):
-        rev |= ((idx >> b) & 1) << (3 - b)
-
-    want = ctx._col_ntt(a, size, rev, jnp.asarray(table))
-    got = col_ntt_pallas(lf, a, rev, table, interpret=True)
-    assert jnp.array_equal(got, want)

@@ -2,7 +2,7 @@
 reference's `sangria_trivial` example + IVC debug-mode checks).
 
 Uses the homomorphic MockCommitmentKey so the full protocol runs on CPU;
-the real-MSM path is exercised separately (bench.py / examples on TPU).
+the real-MSM path is exercised separately (bench.py / examples on the GPU).
 """
 
 import os

@@ -3,7 +3,7 @@ CPU scale (half_bits=8 -> 256-row table), reference
 `examples/sha256/table16/` behavior.
 
 The full production configuration (half_bits=16, 2^16-row table, k=17)
-runs on TPU via examples/sha256_table16.py and the bench."""
+runs on the GPU via examples/sha256_table16.py and the bench."""
 
 import os
 
